@@ -6,8 +6,8 @@ test:
 	python -m pytest tests/ -q
 
 lint:
-	@python -m flake8 deepblast_tpu tests --max-line-length 100 2>/dev/null \
-	 || python -m pyflakes deepblast_tpu tests 2>/dev/null \
+	@python -m flake8 deepblast_jax tests --max-line-length 100 2>/dev/null \
+	 || python -m pyflakes deepblast_jax tests 2>/dev/null \
 	 || echo "no linter installed (flake8/pyflakes); skipping"
 
 bench:

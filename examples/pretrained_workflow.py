@@ -32,7 +32,7 @@ def synthesize_bepler_checkpoint(path, hidden=32):
     """Stand-in for downloading lstm2x.pt (stripped from the reference
     snapshot itself) — same key layout, random weights."""
     import torch
-    from deepblast_tpu.models.convert import bilm_key_shapes
+    from deepblast_jax.models.convert import bilm_key_shapes
     rng = np.random.default_rng(0)
     sd = {k: torch.tensor(rng.standard_normal(s).astype(np.float32) * 0.1)
           for k, s in bilm_key_shapes(hidden_dim=hidden).items()}
@@ -46,12 +46,12 @@ def main():
     synthesize_bepler_checkpoint(ckpt)
 
     # 1. one-time conversion (the only step that needs torch)
-    from deepblast_tpu.cli.convert_lm import main as convert_main
+    from deepblast_jax.cli.convert_lm import main as convert_main
     assert convert_main([ckpt, "--output", artifact]) == 0
 
     # 2. build the model from the artifact — no torch import from here on
-    from deepblast_tpu.cli.common import build_model
-    from deepblast_tpu.train.trainer import DeepBLASTConfig
+    from deepblast_jax.cli.common import build_model
+    from deepblast_jax.train.trainer import DeepBLASTConfig
     config = DeepBLASTConfig(lm_type="bilstm", vocab_size=22,
                              hidden_dim=64, epochs=4, batch_size=8,
                              max_len=64, pad_multiple=32,
@@ -60,8 +60,8 @@ def main():
     print(f"LM feature dim from artifact: {model.config.embedding_dim}")
 
     # 3. quick head fit on simulated pairs (frozen LM), then align
-    from deepblast_tpu.data.substitution import simulate_blosum_pairs
-    from deepblast_tpu.data.dataset import TMAlignDataset
+    from deepblast_jax.data.substitution import simulate_blosum_pairs
+    from deepblast_jax.data.dataset import TMAlignDataset
     pairs = simulate_blosum_pairs(64, seed=1, max_len=48)
     ds = TMAlignDataset(pairs, tokenizer=model.tokenizer, max_len=64)
     state, history = model.fit(ds)

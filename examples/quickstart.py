@@ -6,8 +6,8 @@
 import numpy as np
 import pandas as pd
 
-from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
-from deepblast_tpu.train import DeepBLAST, DeepBLASTConfig
+from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
+from deepblast_jax.train import DeepBLAST, DeepBLASTConfig
 
 AA = list("ACDEFGHIKLMNPQRSTVWY")
 

@@ -4,7 +4,7 @@ deepblast/metrics.py process_alignment usage in ipynb/)."""
 
 import sys
 
-from deepblast_tpu.eval.metrics import process_alignment
+from deepblast_jax.eval.metrics import process_alignment
 
 
 def main(pdb0, pdb1, alignment):

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepblast_tpu.ops import dp as dp_mod
+from deepblast_jax.ops import dp as dp_mod
 
 
 @pytest.fixture

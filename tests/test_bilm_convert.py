@@ -5,7 +5,7 @@ The reference loads Bepler et al.'s ``lstm2x.pt`` torch checkpoint
 file, so the achievable bar is layout-level validation: build a torch
 module with the exact state-dict layout the checkpoint carries
 (``embed`` Embedding, ``rnn`` ModuleList of 1-layer LSTMs, ``linear``),
-convert it, and assert the flax recurrence reproduces torch's LSTM
+convert it, and assert the JAX recurrence reproduces torch's LSTM
 numerics — which pins gate order, kernel transposition, and the
 two-bias summation.
 """
@@ -15,15 +15,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-import flax.linen as nn  # noqa: E402
 
-from deepblast_tpu.models.lm import (  # noqa: E402
+from deepblast_jax.models.lm import (  # noqa: E402
     BiLM,
     convert_bepler_bilm,
     load_bilm,
 )
+from deepblast_jax.models.module import rnn  # noqa: E402
 
 NIN, NOUT, EMB, HID, NL = 8, 7, 7, 5, 2
 
@@ -52,9 +51,8 @@ def test_converted_lstm_matches_torch_recurrence():
         ref, _ = tm.rnn[0](torch.tensor(x))
         ref2, _ = tm.rnn[1](ref)
 
-    cell = nn.RNN(nn.OptimizedLSTMCell(HID))
-    h1 = cell.apply({"params": params["params"]["lstm0"]}, jnp.asarray(x))
-    h2 = cell.apply({"params": params["params"]["lstm1"]}, h1)
+    h1 = rnn(params["params"]["lstm0"], jnp.asarray(x))
+    h2 = rnn(params["params"]["lstm1"], h1)
     np.testing.assert_allclose(np.asarray(h1), ref.numpy(), atol=1e-5)
     np.testing.assert_allclose(np.asarray(h2), ref2.numpy(), atol=1e-5)
 

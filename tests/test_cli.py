@@ -25,7 +25,7 @@ def trained_dir(tmp_path_factory):
     _write_pairs(valid, 4, 1)
     _write_pairs(test, 4, 2)
     out = root / "model"
-    from deepblast_tpu.cli.train import main
+    from deepblast_jax.cli.train import main
     rc = main([
         "--train-pairs", str(train), "--valid-pairs", str(valid),
         "--test-pairs", str(test), "-o", str(out),
@@ -49,7 +49,7 @@ def test_train_cli_outputs(trained_dir):
 
 def test_evaluate_cli(trained_dir):
     root, out, test = trained_dir
-    from deepblast_tpu.cli.evaluate import main
+    from deepblast_jax.cli.evaluate import main
     rc = main(["--load-from-checkpoint", str(out),
                "--test-pairs", str(test),
                "-o", str(root / "eval")])
@@ -66,7 +66,7 @@ def test_search_cli(trained_dir):
     db = root / "db.fasta"
     q.write_text(">q1\nACDEFGHIKL\n>q2\nMNPQRSTVWY\n")
     db.write_text(">d1\nACDEFGHIKL\n>d2\nTVWYACDE\n")
-    from deepblast_tpu.cli.search import main
+    from deepblast_jax.cli.search import main
     outfile = root / "hits.tsv"
     rc = main(["--query-fasta", str(q), "--db-fasta", str(db),
                "--load-from-checkpoint", str(out),
@@ -90,7 +90,7 @@ def test_search_cli_pad_parity(trained_dir):
     q.write_text(">q1\nACDEFGHIKL\n>q2\nMNPQRSTVWYACDEFGHIKLMNPQRSTVWY\n")
     db.write_text(">d1\nACDEFGHIKL\n>d2\nTVWYACDETVWYACDETVWYACDE\n"
                   ">d3\nACD\n")
-    from deepblast_tpu.cli.search import main
+    from deepblast_jax.cli.search import main
 
     def run(pm, path):
         rc = main(["--query-fasta", str(q), "--db-fasta", str(db),
@@ -113,7 +113,7 @@ def test_search_cli_pad_parity(trained_dir):
 
 
 def test_benchmark_cli_smoke(capsys):
-    from deepblast_tpu.cli.benchmark import main
+    from deepblast_jax.cli.benchmark import main
     rc = main(["--sweep", "headline", "--length", "16", "--batch-size", "2",
                "--iters", "1", "--backend", "scan", "--depth", "fwd"])
     assert rc == 0
@@ -123,7 +123,7 @@ def test_benchmark_cli_smoke(capsys):
 
 
 def test_hmm_simulate_requires_hmmer(tmp_path):
-    from deepblast_tpu.cli.hmm_simulate import main
+    from deepblast_jax.cli.hmm_simulate import main
     with pytest.raises((RuntimeError, SystemExit, Exception)):
         main(["--hmmfile", str(tmp_path / "missing.hmm"),
               "--output-file", str(tmp_path / "o.tsv")])
@@ -134,7 +134,7 @@ def test_tensorboard2csv(trained_dir, tmp_path):
     logs = list(out.glob("logdir_*"))
     if not logs:
         pytest.skip("no logdir")
-    from deepblast_tpu.cli.tensorboard2csv import main
+    from deepblast_jax.cli.tensorboard2csv import main
     csv = tmp_path / "m.csv"
     rc = main(["--logdir", str(logs[0]), "--output-csv", str(csv)])
     assert rc == 0
@@ -148,9 +148,9 @@ def test_multi_device_fit_with_steps_per_dispatch():
     import jax
     if len(jax.devices()) < 2:
         pytest.skip("single device")
-    from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
-    from deepblast_tpu.parallel import make_mesh
-    from deepblast_tpu.train import DeepBLAST, DeepBLASTConfig
+    from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
+    from deepblast_jax.parallel import make_mesh
+    from deepblast_jax.train import DeepBLAST, DeepBLASTConfig
     cfg = DeepBLASTConfig(
         embedding_dim=16, hidden_dim=16, layers=2, vocab_size=32,
         lm_type="embed", batch_size=8, learning_rate=1e-2, epochs=1,
@@ -175,7 +175,7 @@ def test_search_cli_mesh_parity(trained_dir):
     db = root / "dbm.fasta"
     q.write_text(">q1\nACDEFGHIKL\n>q2\nMNPQRSTVWY\n>q3\nACDACD\n")
     db.write_text(">d1\nACDEFGHIKL\n>d2\nTVWYACDE\n")
-    from deepblast_tpu.cli.search import main
+    from deepblast_jax.cli.search import main
     f_mesh, f_none = root / "hits_mesh.tsv", root / "hits_none.tsv"
     for mesh, path in [("auto", f_mesh), ("none", f_none)]:
         rc = main(["--query-fasta", str(q), "--db-fasta", str(db),
@@ -200,9 +200,9 @@ def test_multi_device_data_parallel_fit():
     import jax
     if len(jax.devices()) < 2:
         pytest.skip("single device")
-    from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
-    from deepblast_tpu.parallel import make_mesh
-    from deepblast_tpu.train import DeepBLAST, DeepBLASTConfig
+    from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
+    from deepblast_jax.parallel import make_mesh
+    from deepblast_jax.train import DeepBLAST, DeepBLASTConfig
     cfg = DeepBLASTConfig(
         embedding_dim=16, hidden_dim=16, layers=2, vocab_size=32,
         lm_type="embed", batch_size=8, learning_rate=1e-2, epochs=2,

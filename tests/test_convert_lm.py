@@ -15,15 +15,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from deepblast_tpu.models.convert import (
+from deepblast_jax.models.convert import (
     bilm_key_shapes,
     convert_checkpoint,
     hf_t5_encoder_key_shapes,
     infer_t5_config,
+    is_converted_lm,
     load_converted_lm,
+    save_converted_lm,
     validate_hf_t5_state_dict,
 )
-from deepblast_tpu.models.lm import BiLM, T5Config, T5Encoder
+from deepblast_jax.models.lm import BiLM, T5Config, T5Encoder
 
 
 def test_rostlab_xl_manifest_golden():
@@ -90,7 +92,7 @@ def test_convert_t5_end_to_end(tmp_path, dtype):
     ckpt = tmp_path / "pytorch_model.bin"
     torch.save(sd, ckpt)
 
-    from deepblast_tpu.cli.convert_lm import main
+    from deepblast_jax.cli.convert_lm import main
     out = tmp_path / "artifact"
     args = [str(ckpt), "--output", str(out)]
     if dtype == "bfloat16":
@@ -121,7 +123,7 @@ def test_convert_bilstm_end_to_end(tmp_path):
     ckpt = tmp_path / "lstm2x.pt"
     torch.save(sd, ckpt)
 
-    from deepblast_tpu.cli.convert_lm import main
+    from deepblast_jax.cli.convert_lm import main
     out = tmp_path / "bilm"
     assert main([str(ckpt), "--output", str(out), "--kind", "bilstm"]) == 0
     model, params = load_converted_lm(str(out))
@@ -145,8 +147,8 @@ def test_build_model_accepts_artifact(tmp_path):
     out = tmp_path / "bilm"
     convert_checkpoint(str(ckpt), str(out), kind="bilstm")
 
-    from deepblast_tpu.cli.common import build_model
-    from deepblast_tpu.train.trainer import DeepBLASTConfig
+    from deepblast_jax.cli.common import build_model
+    from deepblast_jax.train.trainer import DeepBLASTConfig
     config = DeepBLASTConfig(lm_type="bilstm", embedding_dim=999,
                              vocab_size=22)
     model = build_model(config, pretrain_path=str(out))
@@ -157,6 +159,54 @@ def test_build_model_accepts_artifact(tmp_path):
 
 
 def test_detect_kind_errors():
-    from deepblast_tpu.models.convert import detect_kind
+    from deepblast_jax.models.convert import detect_kind
     with pytest.raises(ValueError):
         detect_kind({"some.other.key": np.zeros(3)})
+
+
+def _rewrite_format(directory, tag):
+    path = os.path.join(directory, "manifest.json")
+    with open(path) as f:
+        manifest = json.load(f)
+    manifest["format"] = tag
+    with open(path, "w") as f:
+        json.dump(manifest, f)
+
+
+# "deepblast-legacy-lm/1" stands for the tag written under the package's
+# former name: the same layout with another package name in the tag
+@pytest.mark.parametrize("tag", ["deepblast-jax-lm/1",
+                                 "deepblast-legacy-lm/1"])
+def test_artifact_format_tags_load(tmp_path, tag):
+    """An artifact loads (torch-free) whatever package name its tag
+    carries, as long as the layout version is 1."""
+    cfg = T5Config.tiny()
+    params = T5Encoder(cfg).init(jax.random.key(0))
+    out = str(tmp_path / "t5")
+    save_converted_lm(out, "prot_t5", params, {
+        k: getattr(cfg, k) for k in ("vocab_size", "d_model", "d_kv",
+                                     "d_ff", "num_layers", "num_heads")})
+    _rewrite_format(out, tag)
+    assert is_converted_lm(out)
+    model, loaded = load_converted_lm(out)
+    assert isinstance(model, T5Encoder)
+    want = jax.tree_util.tree_leaves(params)
+    got = jax.tree_util.tree_leaves(loaded)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("tag", ["deepblast-jax-lm/2", "other-lm/1", None])
+def test_artifact_format_tags_rejected(tmp_path, tag):
+    """Another layout version or a foreign manifest is not an artifact:
+    is_converted_lm says so, and load_converted_lm refuses it."""
+    cfg = T5Config.tiny()
+    out = str(tmp_path / "t5")
+    save_converted_lm(out, "prot_t5",
+                      T5Encoder(cfg).init(jax.random.key(0)),
+                      {"vocab_size": cfg.vocab_size})
+    _rewrite_format(out, tag)
+    assert not is_converted_lm(out)
+    with pytest.raises(ValueError):
+        load_converted_lm(out)

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepblast_tpu.ops import dp as dp_mod
-from deepblast_tpu.ops import dp_scan, reference_dp
-from deepblast_tpu.ops.skew import skew, unskew
+from deepblast_jax.ops import dp as dp_mod
+from deepblast_jax.ops import dp_scan, reference_dp
+from deepblast_jax.ops.skew import skew, unskew
 
 
 def _random_problem(rng, B, N, M, varlen=True):

@@ -1,5 +1,5 @@
 """Built-in Kabsch-Sander secondary-structure assignment
-(deepblast_tpu/data/dssp.py) and the get_mali_structure_stats corpus
+(deepblast_jax/data/dssp.py) and the get_mali_structure_stats corpus
 helper (reference: deepblast/dataset/parse_mali.py:113-161 — Bio.PDB +
 mkdssp there; self-contained here).
 
@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from deepblast_tpu.data.dssp import (
+from deepblast_jax.data.dssp import (
     assign_secondary_structure,
     build_backbone,
     hbond_matrix,
@@ -21,7 +21,7 @@ from deepblast_tpu.data.dssp import (
     read_backbone,
     secondary_structure_counts,
 )
-from deepblast_tpu.data.parsers import get_mali_structure_stats
+from deepblast_jax.data.parsers import get_mali_structure_stats
 
 
 def test_alpha_helix_is_H():

@@ -5,8 +5,8 @@ parsers."""
 import numpy as np
 import pytest
 
-from deepblast_tpu.eval import metrics as M
-from deepblast_tpu.eval import score as S
+from deepblast_jax.eval import metrics as M
+from deepblast_jax.eval import score as S
 
 
 class TestRocEdges:
@@ -125,7 +125,7 @@ class TestParsePDB:
             "  0.00           C\n"
             "TER\n")
         ok, s = __import__(
-            "deepblast_tpu.data.parse_pdb", fromlist=["readPDB"]
+            "deepblast_jax.data.parse_pdb", fromlist=["readPDB"]
         ).readPDB(str(f))
         assert ok
         assert s.seq == "AG"
@@ -160,7 +160,7 @@ ACDEFG
 
 class TestTMAlignParser:
     def test_parse_block_2021(self):
-        from deepblast_tpu.data import parsers
+        from deepblast_jax.data import parsers
         lines = [ln + "\n" for ln in TM2021_BLOCK.split("\n")]
         assert parsers.validate_block_2021(lines)
         row = parsers.parse_block_2021(lines)
@@ -173,7 +173,7 @@ class TestTMAlignParser:
         assert row[7] == "1::.::"
 
     def test_parse_file(self, tmp_path):
-        from deepblast_tpu.data import parsers
+        from deepblast_jax.data import parsers
         # pad to the 23-line block stride of concatenated TMalign output
         lines = TM2021_BLOCK.split("\n")
         lines += [""] * (23 - len(lines))
@@ -189,7 +189,7 @@ class TestMaliParser:
         d = tmp_path / "pair1"
         d.mkdir()
         (d / "d1xxx.manual.ali").write_text("AC-DE\nA-GDE\n")
-        from deepblast_tpu.data import parsers
+        from deepblast_jax.data import parsers
         df = parsers.read_mali(str(tmp_path), tool="manual")
         assert len(df) == 1
         assert df.iloc[0][0] == "ACDE"
@@ -199,7 +199,7 @@ class TestMaliParser:
 
 class TestFatcat:
     def test_extract(self):
-        from deepblast_tpu.data import parsers
+        from deepblast_jax.data import parsers
         df = parsers.parse_fatcat_ids(["d1abcA_ d2xyzB_ 1.0"])
         assert df.iloc[0]["pdb1"] == "1abc"
         assert df.iloc[0]["chain1"] == "A"
@@ -227,7 +227,7 @@ class TestBlastXML:
 </BlastOutput_iterations></BlastOutput>"""
         f = tmp_path / "b.xml"
         f.write_text(xml)
-        from deepblast_tpu.data import parsers
+        from deepblast_jax.data import parsers
         df = parsers.parse_blast_xml(str(f))
         assert len(df) == 1
         assert df.iloc[0]["query_id"] == "q1"
@@ -236,7 +236,7 @@ class TestBlastXML:
 
 
 def test_sim_make_hmm_data():
-    from deepblast_tpu.sim import make_hmm_data
+    from deepblast_jax.sim import make_hmm_data
     states, emissions, theta = make_hmm_data(T=10)
     assert states.shape == (10,)
     assert emissions.shape == (10, 2)

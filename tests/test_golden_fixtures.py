@@ -18,9 +18,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from deepblast_tpu.data import state_utils as su
-from deepblast_tpu.data.dataset import MaliAlignmentDataset, TMAlignDataset
-from deepblast_tpu.ops.dp import traceback
+from deepblast_jax.data import state_utils as su
+from deepblast_jax.data.dataset import MaliAlignmentDataset, TMAlignDataset
+from deepblast_jax.ops.dp import traceback
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -75,7 +75,7 @@ def test_tm_align_dataset_golden():
 def test_tm_align_train_step_golden():
     """One fit epoch on the reference's real TSV must produce a finite,
     decreasing-ish loss (the end-to-end data -> kernels path)."""
-    from deepblast_tpu.train import DeepBLAST, DeepBLASTConfig
+    from deepblast_jax.train import DeepBLAST, DeepBLASTConfig
     path = os.path.join(DATA, "test_tm_align.tab")
     ds = TMAlignDataset(path, tm_threshold=0, max_len=10000)
     cfg = DeepBLASTConfig(

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deepblast_tpu.models import (
+from deepblast_jax.models import (
     BiLM, NeuralAligner, StackedCNN, StackedRNN, T5Config, T5Encoder)
 
 
@@ -72,7 +72,7 @@ def test_bilm_reverse_respects_lengths():
     tok1 = jnp.asarray(rng.integers(0, 21, (1, 8)))
     tok2 = tok1.at[:, 5:].set(7)  # change only padding region
     lengths = jnp.asarray([5])
-    params = m.init(jax.random.key(0), tok1, lengths, method=BiLM.encode)
+    params = m.init(jax.random.key(0), tok1, lengths)
     h1 = m.apply(params, tok1, lengths, method=BiLM.encode)
     h2 = m.apply(params, tok2, lengths, method=BiLM.encode)
     np.testing.assert_allclose(h1[:, :5], h2[:, :5], atol=1e-6)
@@ -91,8 +91,8 @@ def test_t5_encoder_shapes():
 
 def test_t5_hf_conversion_roundtrip():
     """convert_hf_t5_encoder accepts a synthetic HF-layout state dict and
-    produces params the flax module can run with."""
-    from deepblast_tpu.models import convert_hf_t5_encoder
+    produces params the T5 module can run with."""
+    from deepblast_jax.models import convert_hf_t5_encoder
     cfg = T5Config.tiny()
     rng = np.random.default_rng(0)
 

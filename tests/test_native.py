@@ -1,16 +1,16 @@
 """Native C traceback walker: exact parity with the Python oracle walk.
 
-The C walker (deepblast_tpu/native/ctraceback.c) must reproduce
+The C walker (deepblast_jax/native/ctraceback.c) must reproduce
 ops.dp._traceback_walk bit-for-bit — same tie order, sentinel handling,
-border guards, trailing-gap padding — over all three cell layouts
-(natural matrix, dense streams, phase-segmented decode output).
+border guards, trailing-gap padding — over both cell layouts (natural
+matrix, diagonal E stream).
 """
 
 import numpy as np
 import pytest
 
-import deepblast_tpu.native as native
-from deepblast_tpu.ops import dp as dp_mod
+import deepblast_jax.native as native
+from deepblast_jax.ops import dp as dp_mod
 
 
 def _require_native():
@@ -74,11 +74,10 @@ def test_traceback_entrypoint_uses_native(monkeypatch):
     assert fast == slow
 
 
-@pytest.mark.parametrize("backend", ["scan", "pallas_bm"])
+@pytest.mark.parametrize("backend", ["scan", "triton"])
 def test_stream_affine_parity(backend):
-    """The native affine walk over the dense backend-native stream
-    layouts matches the natural-layout walk (pallas_bm's decode_stream
-    is popped so the monolithic dense path actually runs)."""
+    """The native affine walk over the diagonal E stream of either
+    backend matches the natural-layout walk."""
     _require_native()
     rng = np.random.default_rng(11)
     B, N, M = 3, 24, 17
@@ -87,74 +86,11 @@ def test_stream_affine_parity(backend):
     ln = np.asarray([N, N - 3, N - 7], np.int32)
     lm = np.asarray([M, M - 1, M - 6], np.int32)
     E = dp_mod.expected_alignment(theta, A, (ln, lm), backend=backend)
-    _, be = dp_mod.get_backend(backend)
-    ds = be.pop("decode_stream", None)
-    try:
-        s = np.asarray(dp_mod.expected_alignment_stream(
-            theta, A, (ln, lm), backend=backend))
-        for b in range(B):
-            n, m = int(ln[b]), int(lm[b])
-            want = dp_mod.traceback(np.asarray(E[b, :n, :m]))
-            flat, si, sj = be["stream_affine"](s, b)
-            assert native.traceback_affine(flat, si, sj, n, m) == want
-    finally:
-        if ds is not None:
-            be["decode_stream"] = ds
-
-
-def test_segmented_parity():
-    """Native segmented walk over the phase-split decode output matches
-    the natural-layout traceback (pallas_bm interpret mode)."""
-    _require_native()
-    from deepblast_tpu.ops import dp_bm  # noqa: F401  (registers backend)
-    rng = np.random.default_rng(7)
-    B, N, M = 2, 64, 48
-    theta = np.asarray(rng.standard_normal((B, N, M)), np.float32)
-    A = np.asarray(rng.standard_normal((B, N, M)) - 1.0, np.float32)
-    ln = np.asarray([N, N - 5], np.int32)
-    lm = np.asarray([M, M - 9], np.int32)
-    E = dp_mod.expected_alignment(theta, A, (ln, lm), backend="pallas_bm")
-    E_s = dp_mod.expected_alignment_stream(theta, A, (ln, lm),
-                                           backend="pallas_bm")
-    assert isinstance(E_s, dict)
-    segs = [np.asarray(x) for x in E_s["seg"]]
-    row0, w0 = np.asarray(E_s["row0"]), np.asarray(E_s["w0"])
+    s = np.asarray(dp_mod.expected_alignment_stream(
+        theta, A, (ln, lm), backend=backend))
     for b in range(B):
         n, m = int(ln[b]), int(lm[b])
         want = dp_mod.traceback(np.asarray(E[b, :n, :m]))
-        got = native.traceback_segmented(segs, row0, w0, b, n, m)
-        assert got == want
-        # and the public entry point picks the same path
-        assert dp_mod.traceback_stream(E_s, n, m, b,
-                                       backend="pallas_bm") == want
-
-
-def test_segmented_parity_i16():
-    """Native segmented walk on raw int16 fixed-point segments matches
-    the Python accessor walk (which dequantizes) — the C walk is
-    comparison-only and the quantization monotone, so no dequantized
-    copy is needed."""
-    _require_native()
-    import jax.numpy as jnp
-
-    from deepblast_tpu.ops import dp_bm
-    rng = np.random.default_rng(9)
-    B, N, M = 2, 48, 40
-    theta = np.asarray(rng.standard_normal((B, N, M)), np.float32)
-    A = np.asarray(rng.standard_normal((B, N, M)) - 1.0, np.float32)
-    ln = np.asarray([N, N - 5], np.int32)
-    lm = np.asarray([M, M - 9], np.int32)
-    E_s = dp_mod.expected_alignment_stream(
-        theta, A, (ln, lm), backend="pallas_bm",
-        dtypes=dp_bm.DTypeMenu.make(e=jnp.int16))
-    segs = [np.asarray(x) for x in E_s["seg"]]
-    assert all(s.dtype == np.int16 for s in segs)
-    row0, w0 = np.asarray(E_s["row0"]), np.asarray(E_s["w0"])
-    stream_np = {"seg": segs, "row0": row0, "w0": w0}
-    for b in range(B):
-        n, m = int(ln[b]), int(lm[b])
-        got = native.traceback_segmented(segs, row0, w0, b, n, m)
-        assert got is not None
-        acc = dp_bm._stream_accessor(stream_np, n, m)
-        want = dp_mod._traceback_walk(lambda i, j: acc(b, i, j), n, m)
-        assert got == want
+        flat, si, sj = dp_mod.stream_affine(s, b)
+        assert native.traceback_affine(flat, si, sj, n, m) == want
+        assert dp_mod.traceback_stream(s, n, m, b) == want

@@ -13,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from deepblast_tpu.train.schedules import make_schedule  # noqa: E402
+from deepblast_jax.train.schedules import make_schedule  # noqa: E402
 
 LR = 5e-4
 EPOCHS = 16

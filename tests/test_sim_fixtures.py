@@ -23,7 +23,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from deepblast_tpu import sim
+from deepblast_jax import sim
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 HMM = os.path.join(DATA, "zf-C2H2.hmm")
@@ -70,10 +70,9 @@ class _FakeProc:
 def test_hmm_alignments_parses_canned_msa(monkeypatch):
     monkeypatch.setattr(sim, "Popen", _FakeProc)
     random.seed(0)
-    df = sim.hmm_alignments(7, seed=0, n_alignments=12, hmmfile=HMM)
-    assert isinstance(df, pd.DataFrame)
-    assert df.shape == (12, 8)
-    for _, row in df.iterrows():
+    rows = sim.hmm_alignments(7, seed=0, n_alignments=12, hmmfile=HMM)
+    assert len(rows) == 12 and all(len(r) == 8 for r in rows)
+    for row in rows:
         n1, n2, _, _, _, yy, xx, s = row
         assert n1.startswith("ZF-C2H2-SAMPLE")
         assert n2.startswith("ZF-C2H2-SAMPLE")
@@ -94,10 +93,10 @@ def test_hmm_alignments_feeds_tmalign_dataset(monkeypatch, tmp_path):
     simulated-training flow, deepblast/sim.py -> dataset.py)."""
     monkeypatch.setattr(sim, "Popen", _FakeProc)
     random.seed(1)
-    df = sim.hmm_alignments(7, seed=0, n_alignments=6, hmmfile=HMM)
+    rows = sim.hmm_alignments(7, seed=0, n_alignments=6, hmmfile=HMM)
     tsv = tmp_path / "sim.tab"
-    df.to_csv(tsv, sep="\t", header=False, index=False)
-    from deepblast_tpu.data.dataset import TMAlignDataset
+    from deepblast_jax.data.dataset import TMAlignDataset, write_pairs
+    write_pairs(rows, tsv)
     ds = TMAlignDataset(str(tsv))
     assert len(ds) == 6
     item = ds[0]
@@ -109,7 +108,7 @@ def test_hmm_alignments_feeds_tmalign_dataset(monkeypatch, tmp_path):
 
 def test_cli_hmm_simulate_with_canned_output(monkeypatch, tmp_path):
     monkeypatch.setattr(sim, "Popen", _FakeProc)
-    from deepblast_tpu.cli import hmm_simulate
+    from deepblast_jax.cli import hmm_simulate
     out = tmp_path / "sim.tab"
     rc = hmm_simulate.main([
         "--hmmfile", HMM, "--n-sequences", "7", "--n-alignments", "5",

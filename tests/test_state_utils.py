@@ -4,8 +4,8 @@ densest suite (reference: deepblast/dataset/tests/test_utils.py)."""
 import numpy as np
 import pytest
 
-from deepblast_tpu.constants import m, x, y
-from deepblast_tpu.data import state_utils as su
+from deepblast_jax.constants import m, x, y
+from deepblast_jax.data import state_utils as su
 
 
 def S(txt):
@@ -180,7 +180,7 @@ class TestPadSequences:
 
 class TestAlphabet:
     def test_uniprot21_synonyms(self):
-        from deepblast_tpu.data import Uniprot21
+        from deepblast_jax.data import Uniprot21
         a = Uniprot21()
         enc = a.encode(b"OUBZ")
         np.testing.assert_array_equal(enc, [11, 4, 20, 20])
@@ -188,13 +188,13 @@ class TestAlphabet:
         np.testing.assert_array_equal(enc, [0, 1, 2, 3, 4])
 
     def test_tokenizer_pad_ends(self):
-        from deepblast_tpu.data import UniprotTokenizer
+        from deepblast_jax.data import UniprotTokenizer
         t = UniprotTokenizer(pad_ends=True)
         z = t("AR")
         np.testing.assert_array_equal(z, [20, 0, 1, 20])
 
     def test_prot_t5_tokenizer(self):
-        from deepblast_tpu.data import ProtT5Tokenizer
+        from deepblast_jax.data import ProtT5Tokenizer
         t = ProtT5Tokenizer()
         ids, mask = t("AU")  # U -> X
         assert ids.shape == (2,)

@@ -1,10 +1,10 @@
 """BLOSUM62 substitution module + pair simulator (quality-eval corpus
-generator, deepblast_tpu/data/substitution.py)."""
+generator, deepblast_jax/data/substitution.py)."""
 
 import numpy as np
 
-from deepblast_tpu.data.state_utils import states2alignment, tmstate_f
-from deepblast_tpu.data.substitution import (
+from deepblast_jax.data.state_utils import states2alignment, tmstate_f
+from deepblast_jax.data.substitution import (
     AA20,
     BLOSUM62,
     BLOSUM62_FREQS,
@@ -79,7 +79,7 @@ def test_simulated_matches_score_above_background():
 
 
 def test_trainable_dataset_roundtrip():
-    from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
+    from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
     df = simulate_blosum_pairs(8, seed=5)
     ds = TMAlignDataset(df, tokenizer=ProtT5Tokenizer())
     assert len(ds) == 8
@@ -92,8 +92,8 @@ def test_simulate_hmm_pairs_frame_valid():
     as simulate_blosum_pairs: state strings advance x on ':'/'1' and y
     on ':'/'2' to exactly the emitted lengths, and it feeds
     TMAlignDataset unchanged."""
-    from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
-    from deepblast_tpu.data.substitution import simulate_hmm_pairs
+    from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
+    from deepblast_jax.data.substitution import simulate_hmm_pairs
     df = simulate_hmm_pairs(16, seed=7)
     for _, row in df.iterrows():
         x, y, st = row.iloc[5], row.iloc[6], row.iloc[7]
@@ -108,7 +108,7 @@ def test_hmm_sequences_carry_context():
     """Neighbouring residues must carry mutual information (the whole
     point of the HMM corpus: a language model can beat the unigram floor
     on it; on the i.i.d. corpus it cannot)."""
-    from deepblast_tpu.data.substitution import (
+    from deepblast_jax.data.substitution import (
         AA20, sample_hmm_sequences)
     seqs = sample_hmm_sequences(400, seed=9)
     i = {a: k for k, a in enumerate(AA20)}

@@ -2,11 +2,11 @@
 ``T5EncoderModel`` computation graph (VERDICT round-1 item 7).
 
 The reference wraps the HF torch model directly
-(reference: deepblast/language_model.py:21-47); our TPU path re-implements
-the encoder in flax and converts the torch state dict
-(deepblast_tpu/models/lm.py::convert_hf_t5_encoder).  These tests
+(reference: deepblast/language_model.py:21-47); this repo re-implements
+the encoder in plain JAX and converts the torch state dict
+(deepblast_jax/models/lm.py::convert_hf_t5_encoder).  These tests
 instantiate a *real* randomly-initialised ``T5EncoderModel`` offline (no
-hub download), convert its state dict, and assert the flax forward matches
+hub download), convert its state dict, and assert the JAX forward matches
 the torch forward — covering kernel transposition, relative-bias
 orientation/bucketing, RMSNorm placement, and masking, for both the
 ProtT5 ``relu`` FF and the ``gated-gelu`` variant.
@@ -20,7 +20,7 @@ transformers = pytest.importorskip("transformers")
 
 import jax.numpy as jnp  # noqa: E402
 
-from deepblast_tpu.models.lm import (  # noqa: E402
+from deepblast_jax.models.lm import (  # noqa: E402
     T5Config,
     T5Encoder,
     convert_hf_t5_encoder,

@@ -6,8 +6,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
-from deepblast_tpu.train import DeepBLAST, DeepBLASTConfig
+from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
+from deepblast_jax.train import DeepBLAST, DeepBLASTConfig
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -120,7 +120,7 @@ def test_align_string_api(tiny_config):
 def test_losses_match_per_pair_loops():
     """Vectorised losses == reference-style per-pair python loops."""
     import jax.numpy as jnp
-    from deepblast_tpu.train.losses import (
+    from deepblast_jax.train.losses import (
         matrix_cross_entropy, soft_alignment_loss, soft_path_loss, EPS)
     rng = np.random.default_rng(0)
     B, N, M = 3, 6, 5
@@ -171,7 +171,7 @@ def test_losses_match_per_pair_loops():
 
 def test_checkpoint_roundtrip(tiny_config, tmp_path):
     import jax
-    from deepblast_tpu.train import Checkpointer
+    from deepblast_jax.train import Checkpointer
     ds = TMAlignDataset(fixture_frame(4), tokenizer=ProtT5Tokenizer())
     model = DeepBLAST(tiny_config)
     state, _ = model.fit(ds)
@@ -185,7 +185,7 @@ def test_checkpoint_roundtrip(tiny_config, tmp_path):
 
 
 def test_schedules():
-    from deepblast_tpu.train.schedules import make_schedule
+    from deepblast_jax.train.schedules import make_schedule
     for name in ["none", "cosine", "cosine_restarts", "triangular", "steplr"]:
         s = make_schedule(name, 1e-3, epochs=8, steps_per_epoch=10)
         vals = [float(s(i)) for i in [0, 10, 50, 79]]

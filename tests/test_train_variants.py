@@ -5,8 +5,8 @@ the synthetic corpus."""
 import numpy as np
 import pytest
 
-from deepblast_tpu.data import ProtT5Tokenizer, TMAlignDataset
-from deepblast_tpu.train import DeepBLAST, DeepBLASTConfig
+from deepblast_jax.data import ProtT5Tokenizer, TMAlignDataset
+from deepblast_jax.train import DeepBLAST, DeepBLASTConfig
 from tests.test_train import fixture_frame
 
 
@@ -32,7 +32,7 @@ def test_bilstm_lm_trains():
 
 
 def test_t5_lm_trains():
-    from deepblast_tpu.models import T5Config, T5Encoder
+    from deepblast_jax.models import T5Config, T5Encoder
     cfg = DeepBLASTConfig(lm_type="prot_t5", **BASE)
     lm = T5Encoder(T5Config(vocab_size=32, d_model=16, d_kv=8, d_ff=32,
                             num_layers=2, num_heads=2))
@@ -82,7 +82,7 @@ def test_grad_clip_and_accum():
 
 
 def test_validation_logging(tmp_path):
-    from deepblast_tpu.utils.logging import MetricsLogger
+    from deepblast_jax.utils.logging import MetricsLogger
     cfg = DeepBLASTConfig(visualization_fraction=1.0, **BASE)
     ds = TMAlignDataset(fixture_frame(6, min_len=8, max_len=16),
                         tokenizer=ProtT5Tokenizer())
@@ -93,109 +93,26 @@ def test_validation_logging(tmp_path):
     assert 0.0 <= history[-1]["val_perc_id"] <= 1.0
 
 
-def test_dp_bf16_residuals_trains_and_converges():
-    """--dp-bf16-residuals: training through bf16 difference-residual DP
-    storage converges like fp32 (the recurrences stay fp32; only the
-    reverse passes' recomputed soft-argmax sees the ~0.4% rounding).
-    The knob is a per-model DTypeMenu, never a module-global mutation."""
-    from deepblast_tpu.ops import dp_bm
-
-    cfg = DeepBLASTConfig(dp_bf16_residuals=True,
-                          backend="pallas_bm", **BASE)
-    model, state, history = _fit(cfg)
-    # the menu is per-model: module-global defaults are untouched
-    assert dp_bm.D_DTYPE is None
-    assert model.dp_dtypes.d == "bfloat16"
-    assert model.aligner.dp_dtypes is model.dp_dtypes
-    assert history[-1]["train_loss"] < history[0]["train_loss"] * 1.05
+def test_triton_backend_trains_like_scan():
+    """The Triton DP kernels (interpreted here) train step for step like the
+    scan oracle, and decode the same alignment."""
+    hist = {}
+    for backend in ("scan", "triton"):
+        cfg = DeepBLASTConfig(backend=backend, **{**BASE, "epochs": 1})
+        model, state, hist[backend] = _fit(cfg)
+        hist[backend + "_aln"] = model.align("ACDEFGHIK", "ACDFGHIK", state)
+    np.testing.assert_allclose(hist["triton"][-1]["train_loss"],
+                               hist["scan"][-1]["train_loss"], rtol=1e-6)
+    assert hist["triton_aln"] == hist["scan_aln"]
 
 
-def test_dp_i16_streams_trains_and_aligns():
-    """--dp-i16-streams: training with int16 fixed-point input/E stream
-    storage converges (adjoint expectations fall back to fp32), and the
-    inference path still decodes valid alignments."""
-    from deepblast_tpu.ops import dp_bm
-
-    cfg = DeepBLASTConfig(dp_i16_streams=True,
-                          backend="pallas_bm", **BASE)
-    model, state, history = _fit(cfg)
-    assert dp_bm.STREAM_DTYPE is None and dp_bm.E_DTYPE is None
-    assert model.dp_dtypes.stream == "int16"
-    assert model.dp_dtypes.e == "int16"
-    # a real decrease: dead/saturated gradients (the failure mode the
-    # quantized-cotangent bug produced) leave the loss flat
-    assert history[-1]["train_loss"] < history[0]["train_loss"] * 0.8
-    pred = model.align("HEAGAWGHEE", "PAWHEAE", state=state)
-    assert set(pred) <= set(":12") and len(pred) >= 7
-
-
-def test_dp_dtype_menus_isolated_per_model():
-    """Two models with different menus in one process: kernels are keyed
-    on the menu (lru_cache includes it), so neither model sees the
-    other's storage dtypes (VERDICT r2 weak item 2)."""
-    cfg16 = DeepBLASTConfig(dp_i16_streams=True,
-                            backend="pallas_bm", **BASE)
-    # explicit False: the round-5 "auto" default would otherwise give
-    # this model a bf16-d menu on the pallas backend
-    cfg32 = DeepBLASTConfig(dp_bf16_residuals=False,
-                            backend="pallas_bm", **BASE)
-    m16 = DeepBLAST(cfg16)
-    m32 = DeepBLAST(cfg32)
-    assert m16.dp_dtypes is not None and m32.dp_dtypes is None
-    s16 = m16.init()
-    s32 = m32.init()
-    # interleave: same shapes, different menus — each model must decode
-    # through its own kernels
-    a16 = m16.align("HEAGAWGHEE", "PAWHEAE", state=s16)
-    a32 = m32.align("HEAGAWGHEE", "PAWHEAE", state=s32)
-    assert set(a16) <= set(":12") and set(a32) <= set(":12")
-
-
-def test_dp_decode_menu_fast_matches_default():
-    """--dp-decode-menu fast: align() decodes through the measured-best
-    storage menu (D=bf16 + int16 fixed-point E) without touching the
-    training menu; at test scales the traceback matches the fp32 decode
-    exactly."""
-    # dp_bf16_residuals pinned False: the round-5 "auto" default would
-    # otherwise give both models a bf16-d training menu on pallas
-    cfg_fast = DeepBLASTConfig(dp_decode_menu="fast",
-                               dp_bf16_residuals=False,
-                               backend="pallas_bm", **BASE)
-    cfg_def = DeepBLASTConfig(dp_bf16_residuals=False,
-                              backend="pallas_bm", **BASE)
-    m_fast = DeepBLAST(cfg_fast)
-    m_def = DeepBLAST(cfg_def)
-    assert m_fast.dp_dtypes is None          # training menu untouched
-    assert m_fast.dp_decode_dtypes.d == "bfloat16"
-    assert m_fast.dp_decode_dtypes.e == "int16"
-    assert m_def.dp_decode_dtypes is None
-    s = m_fast.init()
-    a_fast = m_fast.align("HEAGAWGHEE", "PAWHEAE", state=s)
-    a_def = m_def.align("HEAGAWGHEE", "PAWHEAE", state=s)
-    assert a_fast == a_def
-
-
-def test_dp_decode_menu_rejects_unknown():
-    import pytest as _pytest
-    cfg = DeepBLASTConfig(dp_decode_menu="nope", **BASE)
-    with _pytest.raises(ValueError):
-        DeepBLAST(cfg)
-
-
-def test_dp_bf16_residuals_auto_default():
-    """Round-5 default flip (multi-seed gate, docs/QUALITY.md): "auto"
-    resolves to bf16 difference-residual storage on the pallas backends
-    (where the byte cut buys step time) and to fp32 on the scan oracle
-    (compute-bound; the emulation would only cost).  Explicit False
-    still forces fp32 everywhere."""
+def test_storage_menu_keys_in_old_configs_load():
+    """config.json files written before the fp32-only DP still carry the
+    removed storage-menu keys; from_json drops them."""
     import dataclasses
-
-    cfg = DeepBLASTConfig(**BASE)
-    assert cfg.dp_bf16_residuals == "auto"
-    scan_cfg = dataclasses.replace(cfg, backend="scan")
-    assert DeepBLAST._dp_dtype_menu(scan_cfg) is None
-    p_cfg = dataclasses.replace(cfg, backend="pallas_bm")
-    menu = DeepBLAST._dp_dtype_menu(p_cfg)
-    assert menu is not None and menu.d == "bfloat16"
-    off = dataclasses.replace(p_cfg, dp_bf16_residuals=False)
-    assert DeepBLAST._dp_dtype_menu(off) is None
+    import json
+    d = dataclasses.asdict(DeepBLASTConfig(**BASE))
+    d.update(dp_bf16_residuals="auto", dp_i16_streams=False,
+             dp_decode_menu="fast")
+    cfg = DeepBLASTConfig.from_json(json.dumps(d))
+    assert cfg == DeepBLASTConfig(**BASE)
